@@ -1,4 +1,4 @@
-"""Kernel-width attribution at SMALL feature scales (round-5 VERDICT item 5).
+"""Kernel-width attribution at SMALL feature scales.
 
 Round 4 pinned the dominant edge-estimator residual on the enclosed mesh
 Cornell at 48x32 as kernel-width ATTRIBUTION bias: the boundary
@@ -33,10 +33,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from qt_raytracer_tpu import RenderConfig
-from qt_raytracer_tpu.diff import edge as edge_mod
-from qt_raytracer_tpu.diff.inverse import mean_image
-from qt_raytracer_tpu.models import meshes
+from qt_raytracer import RenderConfig
+from qt_raytracer.diff import edge as edge_mod
+from qt_raytracer.diff.inverse import mean_image
+from qt_raytracer.models import meshes
 
 
 def main() -> None:

@@ -1,9 +1,9 @@
-"""bf16 candidate-sweep refutation (PERFORMANCE.md roadmap-4 closure).
+"""bf16 candidate-sweep refutation.
 
-Simulates the fused sphere sweep with all candidate math in bf16 (winner
+Simulates the sphere sweep with all candidate math in bf16 (winner
 selection only — the kernel's f32 refinement would still recompute the
 winner's t exactly) against the f32 sweep, on real book-scene primary
-rays. Measured (v5e-independent, pure numerics):
+rays. Measured (device-independent, pure numerics):
 
     hit fraction f32 0.825 vs bf16 0.956; hit/miss flips 13.6%;
     winner flips among shared hits 79.2%; median relative t error 28%.
@@ -30,11 +30,11 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from qt_raytracer_tpu import RenderConfig
-    from qt_raytracer_tpu.core import sampling
-    from qt_raytracer_tpu.core.camera import get_rays
-    from qt_raytracer_tpu.core.render import pixel_grid
-    from qt_raytracer_tpu.models import scenes
+    from qt_raytracer import RenderConfig
+    from qt_raytracer.core import sampling
+    from qt_raytracer.core.camera import get_rays
+    from qt_raytracer.core.render import pixel_grid
+    from qt_raytracer.models import scenes
 
     cfg = RenderConfig(width=192, height=108, spp=1, max_depth=10)
     scene, cam = scenes.get_scene("random", cfg.aspect_ratio)

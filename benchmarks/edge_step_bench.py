@@ -1,7 +1,8 @@
-"""Edge-aware vs plain inverse-rendering step time (VERDICT r2 item 8):
-one session, 512x512 spp 4 depth 4, fused_diff backend — plain pathwise
-step vs edge-aware (3-trace boundary estimator on the fused fast path) vs
-edge-aware forced onto the xla intersector (the round-2 configuration).
+"""Edge-aware vs plain inverse-rendering step time:
+one process, 512x512 spp 4 depth 4, intersector auto (the kernels on a
+GPU) — plain pathwise step vs edge-aware (3-trace boundary estimator) vs
+edge-aware forced onto the xla intersector; "mesh"/"mesh_edge" run the
+pose step on the true Cornell box.
 
     python benchmarks/edge_step_bench.py [--side 512] [--modes ...]
 """
@@ -21,7 +22,7 @@ def main() -> None:
     ap.add_argument("--side", type=int, default=512)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--modes", nargs="*",
-                    default=["plain", "edge_fused", "edge_xla"])
+                    default=["plain", "edge", "edge_xla"])
     args = ap.parse_args()
 
     import dataclasses as dc
@@ -30,9 +31,9 @@ def main() -> None:
     import jax.numpy as jnp
     import optax
 
-    from qt_raytracer_tpu import RenderConfig
-    from qt_raytracer_tpu.diff.inverse import make_train_step, mean_image
-    from qt_raytracer_tpu.models import scenes
+    from qt_raytracer import RenderConfig
+    from qt_raytracer.diff.inverse import make_train_step, mean_image
+    from qt_raytracer.models import scenes
 
     dev = jax.devices()[0]
     print(f"# device={dev.platform}:{dev.device_kind}", flush=True)
@@ -56,7 +57,7 @@ def main() -> None:
         if mode.startswith("mesh"):
             # TRUE Cornell box (config-2 geometry): pose recovery with the
             # kernel-backed mesh edge path (per-lane triangle exclusion).
-            from qt_raytracer_tpu.models import meshes
+            from qt_raytracer.models import meshes
 
             if mesh_world is None:
                 mesh_world = meshes.cornell_box_world()

@@ -1,22 +1,26 @@
-"""Scaling-efficiency harness (north star: >= 90% rays/s, 1 -> N hosts).
+"""Scaling-efficiency harness (north star: >= 90% rays/s, 1 -> N devices).
 
-Measures sharded-render throughput across mesh sizes. On a real pod slice
-run one process per host (docs/MULTIHOST.md); on a dev machine,
---virtual N simulates N devices on CPU — useful for validating the harness
-and the collective paths, NOT for real efficiency numbers (virtual devices
-share one socket's FLOPs).
+Measures sharded-render throughput across mesh sizes. The default mode is
+ONE process that drives every GPU it sees (one host, four cards joined by
+NVLink), timing the px-sharded frame on the first 1, 2, 4 cards:
+
+    python benchmarks/scaling.py --devices 1 2 4
+
+--virtual N simulates N devices on the CPU — useful for validating the
+harness and the collective paths, NOT for efficiency numbers (virtual
+devices share one socket's FLOPs):
 
     python benchmarks/scaling.py --virtual 8 --devices 1 2 4 8
 
 Multi-process mode (--processes N) spawns N cooperating OS processes on
-localhost (jax.distributed.initialize + CPU collectives, 4 virtual devices
-each) and times the cross-process sharded render — the REAL coordination/
-DCN code path, same plumbing as a pod slice:
+localhost (jax.distributed.initialize + CPU collectives, 4 virtual CPU
+devices each; it never opens a GPU) and times the cross-process sharded
+render — the multi-host coordination path (docs/MULTIHOST.md):
 
     python benchmarks/scaling.py --processes 2
 
-Prints one JSON line per device count with throughput and the efficiency
-relative to the single-device run.
+Prints one JSON line per device count with throughput, the efficiency
+relative to the single-device run, and the device as JAX reports it.
 """
 
 from __future__ import annotations
@@ -56,7 +60,7 @@ def main():
         os.environ["JAX_PLATFORMS"] = "cpu"
         import jax
 
-        from qt_raytracer_tpu.parallel import distributed
+        from qt_raytracer.parallel import distributed
         distributed.initialize(f"localhost:{args._port}",
                                num_processes=args.processes,
                                process_id=args._worker)
@@ -71,9 +75,9 @@ def main():
     else:
         import jax
 
-    from qt_raytracer_tpu import RenderConfig
-    from qt_raytracer_tpu.models import scenes
-    from qt_raytracer_tpu.parallel.sharding import (make_mesh,
+    from qt_raytracer import RenderConfig
+    from qt_raytracer.models import scenes
+    from qt_raytracer.parallel.sharding import (make_mesh,
                                                     render_linear_sharded)
 
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
@@ -100,7 +104,8 @@ def main():
             "devices": n, "elapsed_s": round(dt, 4),
             "msamples_per_s": round(ms, 3),
             "efficiency_vs_1": round(ms / (base * n), 3),
-            "virtual": bool(args.virtual),
+            "platform": jax.devices()[0].platform,
+            "device_kind": jax.devices()[0].device_kind,
         }))
 
 
@@ -138,10 +143,10 @@ def _worker_bench(args):
     the radiance psum crossing the process boundary (sp = #processes)."""
     import jax
 
-    from qt_raytracer_tpu import RenderConfig
-    from qt_raytracer_tpu.models import scenes
-    from qt_raytracer_tpu.parallel import distributed
-    from qt_raytracer_tpu.parallel.sharding import render_linear_sharded
+    from qt_raytracer import RenderConfig
+    from qt_raytracer.models import scenes
+    from qt_raytracer.parallel import distributed
+    from qt_raytracer.parallel.sharding import render_linear_sharded
 
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        max_depth=args.depth, rng="hash",
@@ -163,7 +168,7 @@ def _worker_bench(args):
             "devices": len(jax.devices()),
             "elapsed_s": round(dt, 4),
             "msamples_per_s": round(ms, 3),
-            "virtual": True,
+            "platform": jax.devices()[0].platform,
         }))
     return 0
 

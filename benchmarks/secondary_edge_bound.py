@@ -1,4 +1,4 @@
-"""Measured bound on the secondary-bounce boundary term (VERDICT r3 item 4).
+"""Measured bound on the secondary-bounce boundary term.
 
 The edge-aware estimator (diff/edge.py) carries PRIMARY-ray silhouettes
 only. What it drops for the BASELINE parameter families:
@@ -13,7 +13,7 @@ only. What it drops for the BASELINE parameter families:
     estimator zeroes.
 
 This script measures that dropped share on the enclosed mesh Cornell box
-(the worst case named by the VERDICT: most light is indirect):
+(the worst case: most light is indirect):
 
     residual = FD(loss) - autodiff_edge(loss)
 
@@ -41,9 +41,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from qt_raytracer_tpu import RenderConfig
-from qt_raytracer_tpu.diff.inverse import mean_image
-from qt_raytracer_tpu.models import meshes
+from qt_raytracer import RenderConfig
+from qt_raytracer.diff.inverse import mean_image
+from qt_raytracer.models import meshes
 
 
 def main() -> None:

@@ -1,4 +1,4 @@
-"""Triangle-silhouette estimator bias attribution (round-4 VERDICT item 3).
+"""Triangle-silhouette estimator bias attribution.
 
 tests/test_mesh_edge_gradients.py measured edge 0.0299 vs FD 0.0502 (60%
 capture) on the camera-translation L2 case at 16 spp and left the missing
@@ -30,13 +30,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from qt_raytracer_tpu import RenderConfig
-from qt_raytracer_tpu.accel.mesh import MeshBuilder
-from qt_raytracer_tpu.core.camera import make_camera
-from qt_raytracer_tpu.core.scene import SceneBuilder
-from qt_raytracer_tpu.core.world import World
-from qt_raytracer_tpu.diff import edge as edge_mod
-from qt_raytracer_tpu.diff.inverse import mean_image
+from qt_raytracer import RenderConfig
+from qt_raytracer.accel.mesh import MeshBuilder
+from qt_raytracer.core.camera import make_camera
+from qt_raytracer.core.scene import SceneBuilder
+from qt_raytracer.core.world import World
+from qt_raytracer.diff import edge as edge_mod
+from qt_raytracer.diff.inverse import mean_image
 
 
 def quad_world(dx: float = 0.0):

@@ -1,5 +1,5 @@
 // Native BVH builder: binned SAH over primitive AABBs, flattened to the
-// escape-index DFS layout consumed by qt_raytracer_tpu/accel (see
+// escape-index DFS layout consumed by qt_raytracer/accel (see
 // accel/bvh.py for the layout contract; this builder upgrades the split
 // policy from centroid median to 16-bin surface-area heuristic).
 //

@@ -21,10 +21,10 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from qt_raytracer_tpu import RenderConfig  # noqa: E402
-from qt_raytracer_tpu.models import scenes  # noqa: E402
-from qt_raytracer_tpu.parallel import distributed  # noqa: E402
-from qt_raytracer_tpu.parallel.sharding import render_linear_sharded  # noqa: E402
+from qt_raytracer import RenderConfig  # noqa: E402
+from qt_raytracer.models import scenes  # noqa: E402
+from qt_raytracer.parallel import distributed  # noqa: E402
+from qt_raytracer.parallel.sharding import render_linear_sharded  # noqa: E402
 
 distributed.initialize(f"localhost:{port}", num_processes=2, process_id=pid)
 assert jax.process_count() == 2, jax.process_count()

@@ -4,8 +4,8 @@ union boxes, bounding boxes) to the batched traversal helpers."""
 import jax.numpy as jnp
 import numpy as np
 
-from qt_raytracer_tpu.accel.bvh import build_bvh
-from qt_raytracer_tpu.accel.traverse import _slab_test
+from qt_raytracer.accel.bvh import build_bvh
+from qt_raytracer.accel.traverse import _slab_test
 
 
 def _one(bmin, bmax, o, d, t_min=1e-3, t_max=3e38):

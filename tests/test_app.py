@@ -6,10 +6,10 @@ import jax
 import numpy as np
 import pytest
 
-from qt_raytracer_tpu import RenderConfig, render_linear
-from qt_raytracer_tpu.app.progressive import ProgressiveRenderer
-from qt_raytracer_tpu.app.stats import RenderStats
-from qt_raytracer_tpu.models import scenes
+from qt_raytracer import RenderConfig, render_linear
+from qt_raytracer.app.progressive import ProgressiveRenderer
+from qt_raytracer.app.stats import RenderStats
+from qt_raytracer.models import scenes
 
 CFG = RenderConfig(width=16, height=12, spp=6, max_depth=3)
 
@@ -68,16 +68,18 @@ def test_checkpoint_resume(tmp_path, scene_cam):
 
 def test_stats_formulas():
     st = RenderStats(width=400, height=225, spp=24, max_depth=10,
-                     elapsed_s=2.0, frames=4, backend="tpu")
+                     elapsed_s=2.0, frames=4, backend="gpu",
+                     device_kind="NVIDIA H100 80GB HBM3")
     # W*H*spp/elapsed (RayTracerFboItem.cpp:400-404)
     assert st.msamples_per_s == pytest.approx(400 * 225 * 24 / 2.0 / 1e6)
     assert st.fps == pytest.approx(2.0)
     assert st.mrays_per_s == pytest.approx(st.msamples_per_s * 10)
-    assert "Msamples/s" in st.text() and "tpu" in st.text()
+    assert "Msamples/s" in st.text() and "gpu" in st.text()
+    assert "NVIDIA H100 80GB HBM3" in st.text()
 
 
 def test_cli_render(tmp_path, capsys):
-    from qt_raytracer_tpu.app.cli import main
+    from qt_raytracer.app.cli import main
     out = tmp_path / "img.png"
     rc = main(["render", "--scene", "three_sphere", "--width", "16",
                "--height", "12", "--spp", "2", "--depth", "3",
@@ -88,7 +90,7 @@ def test_cli_render(tmp_path, capsys):
 
 
 def test_cli_render_progressive_resume(tmp_path):
-    from qt_raytracer_tpu.app.cli import main
+    from qt_raytracer.app.cli import main
     ck = tmp_path / "ck"
     out1 = tmp_path / "a.png"
     args = ["render", "--scene", "three_sphere", "--width", "16",
@@ -105,7 +107,7 @@ def test_cli_render_progressive_resume(tmp_path):
 
 
 def test_cli_bench_json(capsys):
-    from qt_raytracer_tpu.app.cli import main
+    from qt_raytracer.app.cli import main
     rc = main(["bench", "--scene", "three_sphere", "--width", "16",
                "--height", "12", "--spp", "2", "--depth", "3",
                "--backend", "cpu", "--iters", "1"])
@@ -116,7 +118,7 @@ def test_cli_bench_json(capsys):
 
 
 def test_letterbox_aspect_preserved():
-    from qt_raytracer_tpu.app.preview import letterbox
+    from qt_raytracer.app.preview import letterbox
     img = np.full((100, 200, 3), 255, np.uint8)  # 2:1 source
     out = letterbox(img, 100, 100)               # square target
     assert out.shape == (100, 100, 3)
@@ -126,7 +128,7 @@ def test_letterbox_aspect_preserved():
 
 
 def test_ansi_frame_shape():
-    from qt_raytracer_tpu.app.preview import ansi_frame
+    from qt_raytracer.app.preview import ansi_frame
     img = np.random.default_rng(0).integers(0, 255, (30, 40, 3), np.uint8)
     s = ansi_frame(img, cols=20)
     lines = s.split("\n")
@@ -135,7 +137,7 @@ def test_ansi_frame_shape():
 
 
 def test_run_preview_smoke(tmp_path, scene_cam):
-    from qt_raytracer_tpu.app.preview import run_preview
+    from qt_raytracer.app.preview import run_preview
     import io
     scene, cam = scene_cam
     cfg = RenderConfig(width=16, height=12, spp=2, max_depth=2)
@@ -148,8 +150,8 @@ def test_run_preview_smoke(tmp_path, scene_cam):
 
 
 def test_cli_aa_preset(tmp_path):
-    from qt_raytracer_tpu.app.cli import build_parser
+    from qt_raytracer.app.cli import build_parser
     args = build_parser().parse_args(
         ["render", "--aa", "high", "--out", str(tmp_path / "x.png")])
-    from qt_raytracer_tpu.app.cli import _build_cfg
+    from qt_raytracer.app.cli import _build_cfg
     assert _build_cfg(args).spp == 64

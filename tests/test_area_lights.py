@@ -12,11 +12,11 @@ import dataclasses
 import jax
 import numpy as np
 
-from qt_raytracer_tpu import RenderConfig, render_linear, SceneBuilder
-from qt_raytracer_tpu.accel.mesh import MeshBuilder, build_mesh
-from qt_raytracer_tpu.core.world import World, world_lights
-from qt_raytracer_tpu.models import meshes
-from qt_raytracer_tpu.testing import oracle
+from qt_raytracer import RenderConfig, render_linear, SceneBuilder
+from qt_raytracer.accel.mesh import MeshBuilder, build_mesh
+from qt_raytracer.core.world import World, world_lights
+from qt_raytracer.models import meshes
+from qt_raytracer.testing import oracle
 
 
 def _cornell(emission=(15.0, 15.0, 15.0)):
@@ -59,7 +59,7 @@ def test_area_light_nee_unbiased_and_lower_variance():
     # antialiasing-jitter noise that no light-sampling strategy reduces, and
     # at 8x8 they would swamp the MSE comparison (same setup as the sphere
     # NEE test in test_oracle_golden.py).
-    from qt_raytracer_tpu.core.camera import make_camera
+    from qt_raytracer.core.camera import make_camera
     world, _ = _cornell()
     cam = make_camera((0.0, 0.7, 3.4), (0.0, 0.5, 0.0), vup=(0, 1, 0),
                       vfov=22.0, aspect_ratio=1.0, aperture=0.0,
@@ -86,7 +86,7 @@ def test_mis_weights_partition():
     # ONLY via NEE (light behind an occluder for BSDF rays) and only via
     # BSDF (NEE shadow rays blocked) must each stay unbiased — covered by
     # the oracle agreement above; here check the weights are in [0,1].
-    from qt_raytracer_tpu.core.integrator import _sphere_solid_angle_pdf
+    from qt_raytracer.core.integrator import _sphere_solid_angle_pdf
     import jax.numpy as jnp
     c = jnp.array([[0.0, 5.0, 0.0]])
     r = jnp.array([1.0])
@@ -159,7 +159,7 @@ def test_nee_compiled_out_without_lights():
     cfg = RenderConfig(width=8, height=8, spp=1, max_depth=3, nee=True)
     scene = SceneBuilder().lambertian((0, 0, -3), 1.0, (0.5, 0.5, 0.5)).build(
         pad_to=None)
-    from qt_raytracer_tpu.core.camera import make_camera
+    from qt_raytracer.core.camera import make_camera
     cam = make_camera((0, 0, 0), (0, 0, -3), vfov=40, aspect_ratio=1.0)
     img = np.asarray(render_linear(scene, cam, cfg, jax.random.PRNGKey(0)))
     assert np.isfinite(img).all()

@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from qt_raytracer_tpu.accel.bvh import build_bvh, validate_bvh
-from qt_raytracer_tpu.accel.mesh import build_mesh
-from qt_raytracer_tpu.accel.traverse import (intersect_mesh,
+from qt_raytracer.accel.bvh import build_bvh, validate_bvh
+from qt_raytracer.accel.mesh import build_mesh
+from qt_raytracer.accel.traverse import (intersect_mesh,
                                              intersect_mesh_brute)
 
 

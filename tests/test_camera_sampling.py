@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from qt_raytracer_tpu.core import sampling, vecmath as vm
-from qt_raytracer_tpu.core.camera import get_rays, make_camera
+from qt_raytracer.core import sampling, vecmath as vm
+from qt_raytracer.core.camera import get_rays, make_camera
 
 
 def test_zero_aperture_center_ray_hits_lookat():

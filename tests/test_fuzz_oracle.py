@@ -9,9 +9,9 @@ import jax
 import numpy as np
 import pytest
 
-from qt_raytracer_tpu import RenderConfig, SceneBuilder, render_linear
-from qt_raytracer_tpu.core.camera import make_camera
-from qt_raytracer_tpu.testing import oracle
+from qt_raytracer import RenderConfig, SceneBuilder, render_linear
+from qt_raytracer.core.camera import make_camera
+from qt_raytracer.testing import oracle
 
 
 def _random_scene(rng, n_spheres):

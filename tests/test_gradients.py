@@ -10,11 +10,11 @@ import numpy as np
 import optax
 import pytest
 
-from qt_raytracer_tpu import RenderConfig
-from qt_raytracer_tpu.diff.inverse import (image_loss, make_train_step,
+from qt_raytracer import RenderConfig
+from qt_raytracer.diff.inverse import (image_loss, make_train_step,
                                            mean_image, split_scene)
-from qt_raytracer_tpu.models import scenes
-from qt_raytracer_tpu.parallel.sharding import make_mesh
+from qt_raytracer.models import scenes
+from qt_raytracer.parallel.sharding import make_mesh
 
 
 CFG = RenderConfig(width=12, height=8, spp=2, max_depth=3)
@@ -67,8 +67,8 @@ def test_camera_origin_gradient_matches_fd():
     # sphere fills the whole frame: no hit/miss flips within eps, and FD of
     # the fixed-key render equals the autodiff gradient.
     import dataclasses
-    from qt_raytracer_tpu import SceneBuilder
-    from qt_raytracer_tpu.core.camera import make_camera
+    from qt_raytracer import SceneBuilder
+    from qt_raytracer.core.camera import make_camera
 
     scene = SceneBuilder().lambertian((0.0, 0.0, -5.0), 3.0, (0.6, 0.4, 0.3)) \
                           .build(pad_to=None)
@@ -171,7 +171,7 @@ def test_train_state_checkpoint_roundtrip(tmp_path):
         ref, _ = step_fn(ref, target, jax.random.fold_in(KEY, it))
 
     # Interrupted: 2 steps -> save -> restore -> 2 more.
-    from qt_raytracer_tpu.diff.inverse import (load_train_state,
+    from qt_raytracer.diff.inverse import (load_train_state,
                                                save_train_state)
     st = init_state()
     for it in range(2):

@@ -1,5 +1,5 @@
 """Hash (lowbias32 counter) RNG: statistical quality, oracle agreement, and
-mesh invariance. The hash RNG is the TPU fast path (threefry costs ~20x more
+mesh invariance. The hash RNG is the fast path (threefry costs far more
 per bounce); it must uphold the same guarantees."""
 
 import jax
@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from qt_raytracer_tpu import RenderConfig, render_linear
-from qt_raytracer_tpu.core import sampling
-from qt_raytracer_tpu.models import scenes
-from qt_raytracer_tpu.parallel.sharding import make_mesh, render_linear_sharded
-from qt_raytracer_tpu.testing import oracle
+from qt_raytracer import RenderConfig, render_linear
+from qt_raytracer.core import sampling
+from qt_raytracer.models import scenes
+from qt_raytracer.parallel.sharding import make_mesh, render_linear_sharded
+from qt_raytracer.testing import oracle
 
 
 def _states(n=4096, seed=0):

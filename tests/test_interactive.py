@@ -8,9 +8,9 @@ accumulating like the progressive path, and the quit/save protocol.
 import numpy as np
 import pytest
 
-from qt_raytracer_tpu.app.interactive import InteractiveViewer, rig_from_camera
-from qt_raytracer_tpu.core.config import RenderConfig
-from qt_raytracer_tpu.models import scenes
+from qt_raytracer.app.interactive import InteractiveViewer, rig_from_camera
+from qt_raytracer.core.config import RenderConfig
+from qt_raytracer.models import scenes
 
 
 @pytest.fixture(scope="module")
@@ -76,7 +76,7 @@ def test_frame_renders_ansi_hud(setup):
 
 
 def test_mesh_world_controller_smoke():
-    # VERDICT r2 weak item 7: the viewer must drive MESH WORLDS, not just
+    # The viewer must drive MESH WORLDS, not just
     # SphereScenes — catches World-vs-SphereScene regressions in the
     # viewer path (rig extraction, reset-on-move, ANSI frame) on the true
     # Cornell box (models/scenes.py cornell_mesh).
@@ -103,7 +103,7 @@ def test_move_matches_fresh_render(setup):
     v.step()
     v.step()
 
-    from qt_raytracer_tpu.app.progressive import ProgressiveRenderer
+    from qt_raytracer.app.progressive import ProgressiveRenderer
 
     fresh = ProgressiveRenderer(scene, v.rig.camera(), cfg, seed=3)
     fresh.step(1)
@@ -114,7 +114,7 @@ def test_move_matches_fresh_render(setup):
 @pytest.mark.slow
 def test_run_interactive_termios_loop_under_pty():
     # The REAL raw-mode loop (termios/select plumbing, previously the one
-    # untested surface — VERDICT weak item carried from round 2): drive
+    # untested surface): drive
     # the CLI interactive command inside a pty, let it draw at least one
     # ANSI frame, send a movement key and 'q', and require a clean exit
     # with restored terminal state. Marked slow: subprocess compile can
@@ -133,7 +133,7 @@ def test_run_interactive_termios_loop_under_pty():
     env["JAX_PLATFORMS"] = "cpu"
     mfd, sfd = pty.openpty()
     p = subprocess.Popen(
-        [sys.executable, "-m", "qt_raytracer_tpu.app.cli", "interactive",
+        [sys.executable, "-m", "qt_raytracer.app.cli", "interactive",
          "--scene", "three_sphere", "--width", "16", "--height", "12",
          "--spp", "2", "--ansi-cols", "24"],
         stdin=sfd, stdout=sfd, stderr=sfd, env=env, close_fds=True)

@@ -1,12 +1,12 @@
 """Exact-value intersection tests — ports the reference's SphereTests /
 HitableListTests / geometry families (tests/unit/SphereTests.cpp:9-36,
-HitableListTests.cpp:9-25) to the batched MXU path."""
+HitableListTests.cpp:9-25) to the batched search."""
 
 import jax.numpy as jnp
 import numpy as np
 
-from qt_raytracer_tpu import SceneBuilder
-from qt_raytracer_tpu.core.intersect import BIG, intersect_spheres
+from qt_raytracer import SceneBuilder
+from qt_raytracer.core.intersect import BIG, intersect_spheres
 
 
 def _unit_sphere_scene(pad_to=None):

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from qt_raytracer_tpu import SceneBuilder
-from qt_raytracer_tpu.core import materials, vecmath as vm
+from qt_raytracer import SceneBuilder
+from qt_raytracer.core import materials, vecmath as vm
 
 
 def _scatter_single(builder, in_dir, normal=(0.0, 0.0, 1.0), front_face=True,

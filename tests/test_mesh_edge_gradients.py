@@ -1,4 +1,4 @@
-"""Mesh-silhouette (triangle) edge-aware gradient tests — VERDICT r2 item 5:
+"""Mesh-silhouette (triangle) edge-aware gradient tests:
 the boundary estimator extended from sphere winners to triangle winners.
 
 Geometry: one Lambertian quad (2 triangles) floating against the sky
@@ -16,12 +16,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from qt_raytracer_tpu import RenderConfig
-from qt_raytracer_tpu.accel.mesh import MeshBuilder
-from qt_raytracer_tpu.core.camera import make_camera
-from qt_raytracer_tpu.core.scene import SceneBuilder
-from qt_raytracer_tpu.core.world import World
-from qt_raytracer_tpu.diff.inverse import mean_image
+from qt_raytracer import RenderConfig
+from qt_raytracer.accel.mesh import MeshBuilder
+from qt_raytracer.core.camera import make_camera
+from qt_raytracer.core.scene import SceneBuilder
+from qt_raytracer.core.world import World
+from qt_raytracer.diff.inverse import mean_image
 
 CFG = RenderConfig(width=64, height=48, spp=16, max_depth=2)
 CFG_EDGE = dc.replace(CFG, edge_aware=True)
@@ -124,9 +124,9 @@ def test_mesh_translation_gradient_matches_fd():
 @pytest.mark.slow
 def test_mesh_edge_gradient_on_kernel_path():
     # The kernel-backed edge path for mesh worlds (pallas selection with
-    # per-lane triangle/sphere exclusion — what TPU runs; the xla [N,S]
-    # sweep OOMs past ~512^2): FD-vs-autodiff of the SAME backend on the
-    # quad's projected-size functional, small size (interpret kernels).
+    # per-lane triangle/sphere exclusion — what a GPU runs): FD-vs-autodiff
+    # of the SAME backend on the quad's projected-size functional, small
+    # size (interpret kernels).
     cfg = dc.replace(CFG, width=40, height=32, spp=4,
                      intersector="pallas_interpret")
     cfg_edge = dc.replace(cfg, edge_aware=True)
@@ -150,7 +150,7 @@ def test_mesh_edge_gradient_on_kernel_path():
 
 @pytest.mark.slow
 def test_mesh_translation_gradient_bias_pinned_high_spp():
-    # Bias-pinning case (round-4 VERDICT item 3): the triangle-family analog
+    # Bias-pinning case: the triangle-family analog
     # of the sphere family's tight test (test_edge_gradients.py). Pure
     # coverage functional (projected size under rigid z-translation), where
     # FD is eps-stable (measured -0.0220+-0.0005 across eps 5e-3..4e-2 at
@@ -164,7 +164,7 @@ def test_mesh_translation_gradient_bias_pinned_high_spp():
     # This attribution closed the round-3 "60% capture" question: kernel-
     # width blur plus an eps-UNSTABLE FD reference on the L2 composition
     # (FD there swings 0.039-0.050 over eps), not an estimator defect.
-    from qt_raytracer_tpu.diff import edge as edge_mod
+    from qt_raytracer.diff import edge as edge_mod
 
     cfg = dc.replace(CFG, spp=256)
     cfg_edge = dc.replace(cfg, edge_aware=True)
@@ -198,13 +198,13 @@ def test_mesh_translation_gradient_bias_pinned_high_spp():
 
 @pytest.mark.slow
 def test_camera_pose_recovery_cornell_mesh():
-    # VERDICT r2 item 5 done-criterion: camera-pose recovery in the TRUE
+    # Done-criterion: camera-pose recovery in the TRUE
     # Cornell box (mesh walls + boxes): a perturbed camera converges back
     # with edge-aware gradients at full lr.
     import optax
 
-    from qt_raytracer_tpu.diff.inverse import make_train_step
-    from qt_raytracer_tpu.models import meshes
+    from qt_raytracer.diff.inverse import make_train_step
+    from qt_raytracer.models import meshes
 
     cfg = RenderConfig(width=48, height=32, spp=4, max_depth=2, nee=True)
     world = meshes.cornell_box_world()

@@ -13,11 +13,11 @@ import numpy as np
 import optax
 import pytest
 
-from qt_raytracer_tpu import RenderConfig
-from qt_raytracer_tpu.core.camera import make_camera
-from qt_raytracer_tpu.core.scene import SceneBuilder
-from qt_raytracer_tpu.diff.inverse import mean_image
-from qt_raytracer_tpu.diff.multiview import (make_multiview_train_step,
+from qt_raytracer import RenderConfig
+from qt_raytracer.core.camera import make_camera
+from qt_raytracer.core.scene import SceneBuilder
+from qt_raytracer.diff.inverse import mean_image
+from qt_raytracer.diff.multiview import (make_multiview_train_step,
                                              orbit_cameras, render_targets,
                                              translate_camera)
 
@@ -130,7 +130,7 @@ def test_perview_step_matches_scanned_step():
     # scanned single-call step: the scanned loss is (1/M) sum_v loss_v, so
     # its gradient equals the mean of the per-view gradients. Tolerance is
     # f32 reassociation (the accumulation order differs), not bitwise.
-    from qt_raytracer_tpu.diff.multiview import \
+    from qt_raytracer.diff.multiview import \
         make_multiview_train_step_perview
 
     cfg = RenderConfig(width=32, height=24, spp=2, max_depth=3, rng="hash",
@@ -168,9 +168,9 @@ def test_perview_checkpoint_resume_continues_trajectory(tmp_path):
     # save at step k, restore into a fresh init_state template, continue —
     # the resumed trajectory must equal the straight-through one (the step
     # key is fixed, the state carries params + adam moments + step).
-    from qt_raytracer_tpu.diff.inverse import (load_train_state,
+    from qt_raytracer.diff.inverse import (load_train_state,
                                                save_train_state)
-    from qt_raytracer_tpu.diff.multiview import \
+    from qt_raytracer.diff.multiview import \
         make_multiview_train_step_perview
 
     cfg = RenderConfig(width=24, height=16, spp=2, max_depth=3, rng="hash",

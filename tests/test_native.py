@@ -5,7 +5,7 @@ exercised everywhere else)."""
 import numpy as np
 import pytest
 
-from qt_raytracer_tpu.runtime.native_lib import load_native
+from qt_raytracer.runtime.native_lib import load_native
 
 pytestmark = pytest.mark.skipif(load_native() is None,
                                 reason="native library unavailable")
@@ -14,11 +14,11 @@ pytestmark = pytest.mark.skipif(load_native() is None,
 def test_native_bvh_invariants_and_traversal():
     import jax.numpy as jnp
 
-    from qt_raytracer_tpu.accel.bvh import validate_bvh
-    from qt_raytracer_tpu.accel.mesh import build_mesh
-    from qt_raytracer_tpu.accel.traverse import (intersect_mesh,
+    from qt_raytracer.accel.bvh import validate_bvh
+    from qt_raytracer.accel.mesh import build_mesh
+    from qt_raytracer.accel.traverse import (intersect_mesh,
                                                  intersect_mesh_brute)
-    from qt_raytracer_tpu.runtime.native_bvh import build_bvh_native
+    from qt_raytracer.runtime.native_bvh import build_bvh_native
 
     rng = np.random.default_rng(0)
     lo = rng.uniform(-5, 5, (1000, 3)).astype(np.float32)
@@ -45,7 +45,7 @@ def test_native_bvh_invariants_and_traversal():
 def test_native_sah_beats_or_matches_median_quality():
     # SAH trees should not be (much) deeper-costed than median on clustered
     # input; sanity: node count bounded and all leaves small.
-    from qt_raytracer_tpu.runtime.native_bvh import build_bvh_native
+    from qt_raytracer.runtime.native_bvh import build_bvh_native
 
     rng = np.random.default_rng(1)
     lo = rng.uniform(-10, 10, (5000, 3)).astype(np.float32)
@@ -56,7 +56,7 @@ def test_native_sah_beats_or_matches_median_quality():
 
 
 def test_obj_loader_roundtrip(tmp_path):
-    from qt_raytracer_tpu.runtime.native_bvh import (_load_obj_python,
+    from qt_raytracer.runtime.native_bvh import (_load_obj_python,
                                                      load_obj)
 
     p = tmp_path / "quad.obj"

@@ -1,4 +1,4 @@
-"""Golden-image tests: vectorized TPU renderer vs the scalar float64 oracle.
+"""Golden-image tests: vectorized renderer vs the scalar float64 oracle.
 
 The reference has no cross-backend consistency tests at all (its four
 integrator copies drifted: different scenes, different quantizers —
@@ -11,9 +11,9 @@ import jax
 import numpy as np
 import pytest
 
-from qt_raytracer_tpu import RenderConfig, render_linear
-from qt_raytracer_tpu.models import scenes
-from qt_raytracer_tpu.testing import oracle
+from qt_raytracer import RenderConfig, render_linear
+from qt_raytracer.models import scenes
+from qt_raytracer.testing import oracle
 
 
 def _compare(scene_name, cfg, seed=0, atol=2e-3, rtol=2e-3, max_mismatch=0.0):
@@ -81,7 +81,7 @@ def test_nee_is_unbiased_and_lower_variance():
     # sphere is OUT of frame — direct-visible-light pixels are identical in
     # both estimators but their hit-or-miss jitter noise would swamp the MSE
     # comparison at this resolution.
-    from qt_raytracer_tpu.core.camera import make_camera
+    from qt_raytracer.core.camera import make_camera
     scene, _ = scenes.get_scene("cornell", 1.0, pad_to=None)
     cam = make_camera((0.0, 0.7, 4.0), (0.0, 0.6, 0.0), vfov=22.0,
                       aspect_ratio=1.0, aperture=0.0, focus_dist=4.0)

@@ -1,15 +1,15 @@
 """Vectorized-f64 oracle: equivalence to the scalar oracle and a
-medium-size renderer validation (the full-size check VERDICT r1 weak item 7
-asked for; benchmarks/run_baselines.py --oracle-full runs it at 256x256+)."""
+medium-size renderer validation (the full-size check runs in
+benchmarks/run_baselines.py --oracle-full and chip_smoke.py)."""
 
 import jax
 import numpy as np
 import pytest
 
-from qt_raytracer_tpu import RenderConfig, render_linear
-from qt_raytracer_tpu.models import scenes
-from qt_raytracer_tpu.testing.oracle import render_oracle_linear
-from qt_raytracer_tpu.testing.oracle_vec import render_oracle_vec
+from qt_raytracer import RenderConfig, render_linear
+from qt_raytracer.models import scenes
+from qt_raytracer.testing.oracle import render_oracle_linear
+from qt_raytracer.testing.oracle_vec import render_oracle_vec
 
 
 @pytest.mark.parametrize("name,rr", [("three_sphere", 0), ("glossy_dof", 0),
@@ -50,7 +50,7 @@ def test_renderer_matches_vec_oracle_cornell_mesh():
 
 @pytest.mark.slow
 def test_oracle_full_cornell_mesh_256():
-    # The continuously-run FULL-SIZE config-2 check (VERDICT r2 item 6):
+    # The continuously-run FULL-SIZE config-2 check:
     # 256x256 NEE + mesh + MIS, renderer f32 vs vectorized f64 oracle,
     # per-pixel mismatch fraction asserted every CI run.
     cfg = RenderConfig(width=256, height=256, spp=4, max_depth=6, nee=True,

@@ -6,9 +6,9 @@ import jax
 import numpy as np
 import pytest
 
-from qt_raytracer_tpu import RenderConfig, render_linear
-from qt_raytracer_tpu.models import scenes
-from qt_raytracer_tpu.parallel.sharding import make_mesh, render_linear_sharded
+from qt_raytracer import RenderConfig, render_linear
+from qt_raytracer.models import scenes
+from qt_raytracer.parallel.sharding import make_mesh, render_linear_sharded
 
 
 @pytest.fixture(scope="module")
@@ -56,7 +56,7 @@ def test_nondivisible_pixels_padded(setup):
 def test_sharded_mesh_world_matches_single_device():
     # World with triangle mesh through shard_map (BVH while-loop traversal
     # inside the sharded region).
-    from qt_raytracer_tpu.models import meshes
+    from qt_raytracer.models import meshes
     cfg = RenderConfig(width=16, height=12, spp=2, max_depth=3)
     world = meshes.icosphere_world(subdiv=1, builder="python")
     cam = meshes.icosphere_camera(cfg.aspect_ratio)
@@ -68,7 +68,7 @@ def test_sharded_mesh_world_matches_single_device():
 
 
 def test_distributed_helpers_single_process():
-    from qt_raytracer_tpu.parallel import distributed
+    from qt_raytracer.parallel import distributed
     # Single-process: global_mesh spans the 8 virtual devices; gather is a
     # no-op passthrough; coordinator is process 0.
     mesh = distributed.global_mesh(sp=1)
@@ -88,11 +88,9 @@ def test_spp_not_divisible_raises(setup):
 def test_sharded_terrain_world_px_bitwise():
     # The ACTUAL config-4 terrain world (100k tris, real cluster counts)
     # through render_linear_sharded: px-sharding must be BITWISE invariant
-    # on the mesh path too — the recorded artifact behind "px-sharding is
-    # the linear path past the single-chip mesh plateau"
-    # (docs/PERFORMANCE.md '2 Msamples/s bar' closure; the reference's
-    # tile-pool decomposition being subsumed, RayTracerFboItem.cpp:72-89).
-    from qt_raytracer_tpu.models import meshes
+    # on the mesh path too (the reference's tile-pool decomposition being
+    # subsumed, RayTracerFboItem.cpp:72-89).
+    from qt_raytracer.models import meshes
     cfg = RenderConfig(width=96, height=54, spp=2, max_depth=3, rng="hash")
     world = meshes.terrain_world()
     cam = meshes.terrain_camera(cfg.aspect_ratio)
@@ -101,3 +99,38 @@ def test_sharded_terrain_world_px_bitwise():
     mesh = make_mesh(sp=1, px=8)
     img = np.asarray(render_linear_sharded(world, cam, cfg, key, mesh))
     np.testing.assert_array_equal(img, ref)
+
+
+@pytest.mark.parametrize("what", ["render", "train_step"])
+@pytest.mark.parametrize("scene_name", ["three_sphere", "cornell_mesh"])
+def test_sharded_kernel_path_lowers_for_cuda(monkeypatch, scene_name, what):
+    # The compiled kernels under shard_map: their outputs must carry the
+    # mesh axes the rays vary over, or tracing fails on a multi-GPU mesh.
+    # Lowering to Triton IR needs no GPU (the interpreter cannot run
+    # there: it evaluates the kernel with mixed varying/invariant values).
+    import dataclasses
+
+    import optax
+
+    from qt_raytracer.diff.inverse import make_train_step
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    cfg = RenderConfig(width=16, height=12, spp=2, max_depth=2, nee=True,
+                       rng="hash", intersector="pallas")
+    scene, cam = scenes.get_scene(scene_name, cfg.aspect_ratio)
+    mesh = make_mesh(sp=2, px=2, devices=jax.devices()[:4])
+    key = jax.random.PRNGKey(0)
+    if what == "render":
+        fn = jax.jit(lambda s, c, k: render_linear_sharded(s, c, cfg, k,
+                                                           mesh))
+        args = (scene, cam, key)
+    else:
+        init_state, step_fn, _, _ = make_train_step(
+            scene, cam, dataclasses.replace(cfg, edge_aware=True),
+            optax.adam(1e-2), trainable=(), train_camera="pose",
+            edge_aware=True, mesh=mesh)
+        target = jax.numpy.zeros((cfg.height, cfg.width, 3))
+        fn, args = step_fn, (init_state(), target, key)
+    text = fn.trace(*args).lower(lowering_platforms=("cuda",)).as_text()
+    kernel = "bvh_search" if scene_name == "cornell_mesh" else "sphere_search"
+    assert kernel in text

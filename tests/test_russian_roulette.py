@@ -3,9 +3,9 @@
 import jax
 import numpy as np
 
-from qt_raytracer_tpu import RenderConfig, render_linear
-from qt_raytracer_tpu.models import scenes
-from qt_raytracer_tpu.testing import oracle
+from qt_raytracer import RenderConfig, render_linear
+from qt_raytracer.models import scenes
+from qt_raytracer.testing import oracle
 
 
 def test_rr_matches_oracle():

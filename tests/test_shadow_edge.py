@@ -1,4 +1,4 @@
-"""NEE shadow-edge boundary term (round-4 VERDICT item 4).
+"""NEE shadow-edge boundary term.
 
 Isolation scene: the camera sees ONLY a lambertian floor; the occluder
 hangs above/behind the camera and the emissive quad light is far overhead
@@ -20,12 +20,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from qt_raytracer_tpu import RenderConfig
-from qt_raytracer_tpu.accel.mesh import MeshBuilder
-from qt_raytracer_tpu.core.camera import make_camera
-from qt_raytracer_tpu.core.scene import SceneBuilder
-from qt_raytracer_tpu.core.world import World
-from qt_raytracer_tpu.diff.inverse import mean_image
+from qt_raytracer import RenderConfig
+from qt_raytracer.accel.mesh import MeshBuilder
+from qt_raytracer.core.camera import make_camera
+from qt_raytracer.core.scene import SceneBuilder
+from qt_raytracer.core.world import World
+from qt_raytracer.diff.inverse import mean_image
 
 KEY = jax.random.PRNGKey(0)
 BASE_DX = 0.15
@@ -119,16 +119,15 @@ def sphere_shadow_scene(dx: float = 0.0):
 
 
 @pytest.mark.slow
-def test_shadow_edge_sphere_scene_fused_path():
-    # ADVICE r4: exercise the FUSED sphere-scene branch of the shadow term
-    # directly (diff/edge.py use_fused: shadow_backend / p0_det / diffuse0
-    # derived from the fused-hit kernel outputs h0f) — the mesh test above
-    # takes the general path. Routed through fused_diff_interpret so the
-    # fused branch runs on CPU; same isolation methodology.
+def test_shadow_edge_sphere_scene_kernel_path():
+    # The shadow term on a pure sphere scene with the sphere kernel doing
+    # every selection (bounce-0 winner, shadow ray, background re-trace),
+    # through the interpreter on the CPU; same isolation methodology as the
+    # mesh test above.
     import dataclasses
 
     cfg = RenderConfig(width=48, height=48, spp=64, max_depth=1, nee=True,
-                       intersector="fused_diff_interpret")
+                       intersector="pallas_interpret")
     cfg_edge = dc.replace(cfg, edge_aware=True)
     cam = make_camera(lookfrom=(0, 3, 0), lookat=(0, 0, 0.01),
                       vup=(0, 0, 1), vfov=45.0, aspect_ratio=1.0,

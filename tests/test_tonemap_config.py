@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from qt_raytracer_tpu import AA_PRESETS, RenderConfig, tonemap
+from qt_raytracer import AA_PRESETS, RenderConfig, tonemap
 
 
 def test_cpu_quantizer_exact():
@@ -56,9 +56,9 @@ def test_samples_per_batch_rounded_to_divisor():
 
 
 def test_pixel_chunk_auto_heuristic():
-    # The chooseTileSize analog (VERDICT r1 item 7): 0 = auto, -1 = off.
-    from qt_raytracer_tpu.core.render import resolve_pixel_chunk
-    from qt_raytracer_tpu.core.config import RenderConfig
+    # The chooseTileSize analog: 0 = auto, -1 = off.
+    from qt_raytracer.core.render import resolve_pixel_chunk
+    from qt_raytracer.core.config import RenderConfig
     # Small images: one launch already underfills the chip -> no chunking.
     assert resolve_pixel_chunk(RenderConfig(width=400, height=225)) == 0
     # 1080p: ~400Ki-ray chunks, multiples of the 1024-ray kernel tile.

@@ -7,11 +7,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from qt_raytracer_tpu import RenderConfig, render_linear, SceneBuilder
-from qt_raytracer_tpu.accel.mesh import build_mesh
-from qt_raytracer_tpu.core.world import World
-from qt_raytracer_tpu.models import meshes
-from qt_raytracer_tpu.testing import oracle
+from qt_raytracer import RenderConfig, render_linear, SceneBuilder
+from qt_raytracer.accel.mesh import build_mesh
+from qt_raytracer.core.world import World
+from qt_raytracer.models import meshes
+from qt_raytracer.testing import oracle
 
 
 def _small_world(emissive_mesh=False, light=False):
@@ -89,7 +89,7 @@ def test_bare_scene_still_works():
     # Public API: SphereScene without mesh remains valid (as_world wrap).
     cfg = RenderConfig(width=8, height=8, spp=1, max_depth=2)
     scene = SceneBuilder().lambertian((0, 0, -3), 1.0, (0.5, 0.5, 0.5)).build()
-    from qt_raytracer_tpu.core.camera import make_camera
+    from qt_raytracer.core.camera import make_camera
     cam = make_camera((0, 0, 0), (0, 0, -3), vfov=40, aspect_ratio=1.0)
     img = np.asarray(render_linear(scene, cam, cfg, jax.random.PRNGKey(0)))
     assert np.isfinite(img).all()
